@@ -1,21 +1,22 @@
 """Test configuration (platform forcing lives in the ROOT conftest.py,
 which must run before any jax backend initializes — SURVEY.md §4.5:
-distributed code paths are exercised with 8 virtual CPU devices so CI needs
-no TPU; Pallas kernels run in interpreter mode on CPU)."""
+distributed code paths are exercised with 8 virtual CPU devices, so the
+suite needs no accelerator)."""
 
 import jax
 
+from han_jax.utils.cache import setup_compile_cache
+
 jax.config.update("jax_enable_x64", False)
-# Persistent compilation cache: first-compile on this host is ~5s even for
-# trivial programs; cache makes re-runs fast.
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache_cpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+# Persistent compilation cache (its own directory: CPU programs only), so
+# re-runs skip the first compile of every program.
+setup_compile_cache(".jax_cache_cpu")
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
-from han_tpu.graph import synthetic  # noqa: E402
+from han_jax.graph import synthetic  # noqa: E402
 
 
 @pytest.fixture(scope="session")

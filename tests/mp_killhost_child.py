@@ -21,16 +21,16 @@ total_steps = int(sys.argv[4])
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=2")
-os.environ["HAN_TPU_COORDINATOR"] = f"localhost:{port}"
-os.environ["HAN_TPU_NUM_PROCESSES"] = "2"
-os.environ["HAN_TPU_PROCESS_ID"] = str(pid)
+os.environ["HAN_COORDINATOR"] = f"localhost:{port}"
+os.environ["HAN_NUM_PROCESSES"] = "2"
+os.environ["HAN_PROCESS_ID"] = str(pid)
 
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-from han_tpu.parallel import launch  # noqa: E402
+from han_jax.parallel import launch  # noqa: E402
 
 launch.init_distributed()
 
@@ -38,11 +38,11 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
 
-from han_tpu.graph.build import metapath_to_csr  # noqa: E402
-from han_tpu.graph.synthetic import planted_hetero  # noqa: E402
-from han_tpu.parallel.edge_partition import partition_csr  # noqa: E402
-from han_tpu.parallel.mesh import make_mesh  # noqa: E402
-from han_tpu.parallel.shard_attn import partitioned_attention  # noqa: E402
+from han_jax.graph.build import metapath_to_csr  # noqa: E402
+from han_jax.graph.synthetic import planted_hetero  # noqa: E402
+from han_jax.parallel.edge_partition import partition_csr  # noqa: E402
+from han_jax.parallel.mesh import make_mesh  # noqa: E402
+from han_jax.parallel.shard_attn import partitioned_attention  # noqa: E402
 
 ds = planted_hetero(n_nodes=120, n_feats=8, n_classes=3, n_metapaths=1,
                     avg_degree=5.0, train_per_class=8, n_val=8, seed=5)

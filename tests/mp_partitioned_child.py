@@ -1,6 +1,6 @@
 """Child worker for tests/test_multiprocess.py — NOT a test module.
 
-Joins a 2-process jax.distributed system (via the HAN_TPU_* env resolution
+Joins a 2-process jax.distributed system (via the HAN_* env resolution
 in parallel/launch.py), runs edge-partitioned attention over the 4-device
 global mesh, and asserts equality with the locally-computed single-process
 reference. Prints MP_OK on success.
@@ -15,16 +15,16 @@ port = sys.argv[2]
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=2")
-os.environ["HAN_TPU_COORDINATOR"] = f"localhost:{port}"
-os.environ["HAN_TPU_NUM_PROCESSES"] = "2"
-os.environ["HAN_TPU_PROCESS_ID"] = str(pid)
+os.environ["HAN_COORDINATOR"] = f"localhost:{port}"
+os.environ["HAN_NUM_PROCESSES"] = "2"
+os.environ["HAN_PROCESS_ID"] = str(pid)
 
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-from han_tpu.parallel import launch  # noqa: E402
+from han_jax.parallel import launch  # noqa: E402
 
 info = launch.init_distributed()
 assert info["num_processes"] == 2, info
@@ -35,13 +35,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.experimental import multihost_utils  # noqa: E402
 
-from han_tpu.graph.containers import csr_from_dense  # noqa: E402
-from han_tpu.graph.synthetic import planted_hetero  # noqa: E402
-from han_tpu.graph.build import metapath_to_csr  # noqa: E402
-from han_tpu.ops.attention import csr_attention  # noqa: E402
-from han_tpu.parallel.edge_partition import partition_csr  # noqa: E402
-from han_tpu.parallel.mesh import make_mesh  # noqa: E402
-from han_tpu.parallel.shard_attn import partitioned_attention  # noqa: E402
+from han_jax.graph.containers import csr_from_dense  # noqa: E402
+from han_jax.graph.synthetic import planted_hetero  # noqa: E402
+from han_jax.graph.build import metapath_to_csr  # noqa: E402
+from han_jax.ops.attention import csr_attention  # noqa: E402
+from han_jax.parallel.edge_partition import partition_csr  # noqa: E402
+from han_jax.parallel.mesh import make_mesh  # noqa: E402
+from han_jax.parallel.shard_attn import partitioned_attention  # noqa: E402
 
 ds = planted_hetero(n_nodes=200, n_feats=16, n_classes=3, n_metapaths=1,
                     avg_degree=6.0, train_per_class=10, n_val=10, seed=7)

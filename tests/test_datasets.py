@@ -5,10 +5,11 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from han_tpu.datasets.acm import acm_synthetic
-from han_tpu.datasets.ppi import batch_components, ppi_synthetic
-from han_tpu.graph.build import symmetric_metapath, with_self_loops
-from han_tpu.graph.containers import csr_from_scipy, dense_from_csr, ell_from_csr
+from han_jax.datasets.acm import acm_synthetic
+from han_jax.datasets.base import REFERENCE_DATA
+from han_jax.datasets.ppi import batch_components, ppi_synthetic
+from han_jax.graph.build import symmetric_metapath, with_self_loops
+from han_jax.graph.containers import csr_from_scipy, dense_from_csr, ell_from_csr
 
 
 def test_acm_fixture_shapes():
@@ -80,10 +81,10 @@ def test_batch_components_pure_splits():
 
 
 @pytest.mark.skipif(
-    not __import__("pathlib").Path("/root/reference/data/DBLP_four_area/author_label.txt").exists(),
+    not (REFERENCE_DATA / "DBLP_four_area" / "author_label.txt").exists(),
     reason="raw DBLP data not present")
 def test_dblp_real_build():
-    from han_tpu.datasets.dblp import load_dblp
+    from han_jax.datasets.dblp import load_dblp
 
     ds = load_dblp()
     assert ds.n_nodes == 4057 and ds.n_classes == 4
@@ -96,10 +97,10 @@ def test_dblp_real_build():
 
 
 @pytest.mark.skipif(
-    not __import__("pathlib").Path("/root/reference/data/imdb/movie_metadata.csv").exists(),
+    not (REFERENCE_DATA / "imdb" / "movie_metadata.csv").exists(),
     reason="raw IMDB data not present")
 def test_imdb_real_build():
-    from han_tpu.datasets.imdb import load_imdb
+    from han_jax.datasets.imdb import load_imdb
 
     ds = load_imdb()
     assert ds.n_classes == 3
@@ -111,7 +112,7 @@ def test_imdb_real_build():
 def test_normalize_adj_matches_reference_math():
     """D^-1/2 A D^-1/2 (utils/process.py:144-151) against a direct dense
     computation, including a zero-degree row."""
-    from han_tpu.graph.build import normalize_adj, preprocess_adj
+    from han_jax.graph.build import normalize_adj, preprocess_adj
 
     rng = np.random.default_rng(0)
     a = (rng.random((12, 12)) < 0.3).astype(np.float32)

@@ -7,8 +7,8 @@ import pickle
 import numpy as np
 import pytest
 
-from han_tpu.datasets.base import REFERENCE_DATA
-from han_tpu.datasets.dblp_kg import clean_terms, hin_to_kg
+from han_jax.datasets.base import REFERENCE_DATA
+from han_jax.datasets.dblp_kg import clean_terms, hin_to_kg
 
 DBLP = REFERENCE_DATA / "DBLP_four_area"
 needs_dblp = pytest.mark.skipif(
@@ -53,7 +53,7 @@ def test_clean_terms_filters_stopwords(tmp_path):
 
 
 def test_kmeans_eval_silhouette():
-    from han_tpu.train.eval_embed import kmeans_eval
+    from han_jax.train.eval_embed import kmeans_eval
 
     rng = np.random.default_rng(0)
     # two well-separated blobs → high NMI and positive silhouette
@@ -67,7 +67,7 @@ def test_kmeans_eval_silhouette():
 def test_confusion_matrix_matches_sklearn():
     import sklearn.metrics
 
-    from han_tpu.nn.losses import confusion_matrix
+    from han_jax.nn.losses import confusion_matrix
 
     rng = np.random.default_rng(1)
     logits = rng.standard_normal((50, 4)).astype(np.float32)

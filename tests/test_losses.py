@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 from sklearn.metrics import f1_score
 
-from han_tpu.nn.losses import (
+from han_jax.nn.losses import (
     class_weighted_cross_entropy, l2_regularizer, masked_accuracy,
     masked_sigmoid_cross_entropy, masked_softmax_cross_entropy, micro_f1,
 )

@@ -7,10 +7,10 @@ import numpy as np
 import optax
 import pytest
 
-from han_tpu.graph.build import metapath_to_csr, metapath_to_dense
-from han_tpu.graph.containers import ell_from_csr
-from han_tpu.nn.losses import l2_regularizer, masked_softmax_cross_entropy
-from han_tpu.nn.models import GAT, HAN, HANShared
+from han_jax.graph.build import metapath_to_csr, metapath_to_dense
+from han_jax.graph.containers import ell_from_csr
+from han_jax.nn.losses import l2_regularizer, masked_softmax_cross_entropy
+from han_jax.nn.models import GAT, HAN, HANShared
 
 
 def make_inputs(ds, kind="dense"):
@@ -54,7 +54,7 @@ def test_han_backends_agree(tiny_ds, kind):
 
 @pytest.mark.parametrize("kind", ["dense", "csr", "ell"])
 def test_han_bf16_close_to_f32(tiny_ds, kind):
-    """bf16 compute dtype (r2 VERDICT item 3): features/MXU transforms in
+    """bf16 compute dtype: features/matmul transforms in
     bf16, params + logits + accumulators f32 — outputs track the f32 model
     to bf16 tolerance on every backend; logits dtype stays f32."""
     graphs, xs = make_inputs(tiny_ds, kind)
@@ -171,7 +171,7 @@ def test_han_shared_coefs(tiny_ds):
 
 
 def test_han_shared_coefs_csr_edge_domain(tiny_ds):
-    """Edge-domain coef output (VERDICT r4 #6): HANShared(return_coefs=True)
+    """Edge-domain coef output: HANShared(return_coefs=True)
     on the csr backend returns per-edge mean-over-head coefs whose scatter
     into an (N, N) matrix matches the dense oracle's coef matrix — so
     attention analysis (reference gat.py:148-173) works beyond the dense

@@ -1,9 +1,9 @@
-"""Multi-process jax.distributed exercise (SURVEY.md §4.5a/§5.8; VERDICT
-round-1 item 6): two REAL processes join via launch.init_distributed
-(coordinator + HAN_TPU_* env resolution), form one 4-device global mesh
+"""Multi-process jax.distributed exercise (SURVEY.md §4.5a/§5.8): two REAL processes join via launch.init_distributed
+(coordinator + HAN_* env resolution), form one 4-device global mesh
 (2 local CPU devices each), and run edge-partitioned attention across the
-process boundary — gloo CPU collectives stand in for ICI/DCN. Equality
-with the single-process result is asserted inside each worker."""
+process boundary — gloo CPU collectives stand in for the device
+interconnect. Equality with the single-process result is asserted inside
+each worker."""
 
 import os
 import socket

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from han_tpu import native
+from han_jax import native
 
 
 @pytest.fixture(scope="module")

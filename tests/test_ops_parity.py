@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from han_tpu.graph.containers import (
+from han_jax.graph.containers import (
     csr_from_dense, dense_from_numpy, ell_from_csr,
 )
-from han_tpu.ops.attention import (
+from han_jax.ops.attention import (
     csr_attention, dense_attention, ell_attention,
     sddmm_edge_logits, segment_softmax, spmm_aggregate,
 )
@@ -141,9 +141,9 @@ def test_edge_attention_coefs_matches_segment_softmax():
     equals the generic csr coefficients exactly."""
     import numpy as np
     import jax.numpy as jnp
-    from han_tpu.graph.build import metapath_to_csr
-    from han_tpu.graph.synthetic import planted_hetero
-    from han_tpu.ops.attention import (edge_attention_coefs,
+    from han_jax.graph.build import metapath_to_csr
+    from han_jax.graph.synthetic import planted_hetero
+    from han_jax.ops.attention import (edge_attention_coefs,
                                        segment_softmax, sddmm_edge_logits)
 
     ds = planted_hetero(n_nodes=90, n_feats=8, n_classes=3, n_metapaths=1,

@@ -1,19 +1,19 @@
 """Distributed tests on the virtual 8-device CPU mesh (SURVEY.md §4.5):
 partition equivalence — the framework's key invariant — and the full
-multi-chip dry run."""
+multi-device dry run."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from han_tpu.graph.build import metapath_to_csr
-from han_tpu.graph.synthetic import planted_hetero
-from han_tpu.nn.models import HAN
-from han_tpu.ops.attention import csr_attention
-from han_tpu.parallel.edge_partition import partition_csr
-from han_tpu.parallel.mesh import make_mesh
-from han_tpu.parallel.shard_attn import partitioned_attention
+from han_jax.graph.build import metapath_to_csr
+from han_jax.graph.synthetic import planted_hetero
+from han_jax.nn.models import HAN
+from han_jax.ops.attention import csr_attention
+from han_jax.parallel.edge_partition import partition_csr
+from han_jax.parallel.mesh import make_mesh
+from han_jax.parallel.shard_attn import partitioned_attention
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -102,15 +102,15 @@ def test_dryrun_multichip():
 
 
 def test_dryrun_equivalence_gate_can_fail(monkeypatch):
-    """Mutation check on the cross-backend equivalence gate (VERDICT r4 #8):
+    """Mutation check on the cross-backend equivalence gate:
     perturb ONE backend's attention logits and assert run_dryrun's
     deterministic-loss assertion actually fires. Guards the guard — a
     det_max_dev that reads 0.0 is only meaningful if it can read nonzero."""
-    from han_tpu.parallel import dryrun, shard_attn
+    from han_jax.parallel import dryrun, shard_attn
 
     real = shard_attn._local_csr_attention
     # csr backend only: scale that backend's aggregated output — the
-    # flash/ring backends are untouched, so det losses must diverge
+    # ring backend is untouched, so det losses must diverge
     monkeypatch.setattr(
         shard_attn, "_local_csr_attention",
         lambda *a, **kw: real(*a, **kw) * 1.5)
@@ -121,9 +121,21 @@ def test_dryrun_equivalence_gate_can_fail(monkeypatch):
 def test_launch_single_process_noop():
     """init_distributed with no configuration is a no-op that still reports
     the local topology (SURVEY.md §5.8 launcher)."""
-    from han_tpu.parallel.launch import init_distributed, is_coordinator
+    from han_jax.parallel.launch import init_distributed, is_coordinator
 
     info = init_distributed()
     assert info["num_processes"] == 1 and info["process_id"] == 0
     assert info["global_devices"] >= 1
     assert is_coordinator()
+
+
+@pytest.mark.parametrize("name", ["HAN_OLD_COORDINATOR", "HAN_X_NUM_PROCESSES",
+                                  "HAN_X_PROCESS_ID"])
+def test_launch_refuses_unread_coordinate_variables(monkeypatch, name):
+    """A launcher that sets coordinates under another HAN_* name fails
+    loudly instead of leaving each host a single-process job."""
+    from han_jax.parallel.launch import init_distributed
+
+    monkeypatch.setenv(name, "localhost:1234" if "COORD" in name else "2")
+    with pytest.raises(RuntimeError, match=name):
+        init_distributed()

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from han_tpu.datasets.planetoid import load_planetoid
-from han_tpu.datasets.registry import load_dataset
+from han_jax.datasets.planetoid import load_planetoid
+from han_jax.datasets.registry import load_dataset
 
 
 def write_fixture(root, name, *, n_train=8, n_val_extra=12, n_test=10,
@@ -99,8 +99,8 @@ def test_registry_and_trainer_smoke(tmp_path):
     write_fixture(tmp_path, "cora")
     ds = load_dataset("cora", root=tmp_path)
     assert ds.name == "cora"
-    from han_tpu.train.config import preset
-    from han_tpu.train.trainer import MetricLogger, Trainer
+    from han_jax.train.config import preset
+    from han_jax.train.trainer import MetricLogger, Trainer
 
     cfg = preset("cora")
     assert cfg.model.arch == "gat"
@@ -122,14 +122,14 @@ def test_registry_and_trainer_smoke(tmp_path):
 
 
 def test_pubmed_preset_gat_on_flash(tmp_path):
-    """pubmed preset = homogeneous GAT over the bcsr/flash backend."""
+    """pubmed preset = homogeneous GAT over the csr edge-domain backend."""
     write_fixture(tmp_path, "pubmed")
     ds = load_planetoid(tmp_path, "pubmed")
-    from han_tpu.train.config import preset
-    from han_tpu.train.trainer import MetricLogger, Trainer
+    from han_jax.train.config import preset
+    from han_jax.train.trainer import MetricLogger, Trainer
 
     cfg = preset("pubmed")
-    assert cfg.model.arch == "gat" and cfg.model.impl == "flash"
+    assert cfg.model.arch == "gat" and cfg.data.graph_format == "csr"
     cfg.train.epochs = 2
     cfg.train.patience = 10
     cfg.train.checkpoint_dir = str(tmp_path / "ckpt")

@@ -19,11 +19,11 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from han_tpu.graph import synthetic
-from han_tpu.train.config import preset
-from han_tpu.train.preempt import PreemptionGuard
-from han_tpu.train.sampled import SampledTrainer
-from han_tpu.train.trainer import MetricLogger
+from han_jax.graph import synthetic
+from han_jax.train.config import preset
+from han_jax.train.preempt import PreemptionGuard
+from han_jax.train.sampled import SampledTrainer
+from han_jax.train.trainer import MetricLogger
 
 ckpt_dir = sys.argv[1]
 ds = synthetic.planted_hetero(n_nodes=128, n_feats=24, n_classes=3,
@@ -83,10 +83,10 @@ def test_sigterm_checkpoints_and_resumes(tmp_path):
     assert proc.returncode == 0
 
     # resume in-process from the child's checkpoint and finish a few epochs
-    from han_tpu.graph import synthetic
-    from han_tpu.train.config import preset
-    from han_tpu.train.sampled import SampledTrainer
-    from han_tpu.train.trainer import MetricLogger
+    from han_jax.graph import synthetic
+    from han_jax.train.config import preset
+    from han_jax.train.sampled import SampledTrainer
+    from han_jax.train.trainer import MetricLogger
 
     ds = synthetic.planted_hetero(n_nodes=128, n_feats=24, n_classes=3,
                                   n_metapaths=2, avg_degree=6.0,

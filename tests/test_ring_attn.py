@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from han_tpu.graph.build import metapath_to_csr
-from han_tpu.graph.synthetic import planted_hetero
-from han_tpu.ops.attention import csr_attention
-from han_tpu.parallel.mesh import make_mesh
-from han_tpu.parallel.ring_attn import partition_csr_2d, ring_attention
+from han_jax.graph.build import metapath_to_csr
+from han_jax.graph.synthetic import planted_hetero
+from han_jax.ops.attention import csr_attention
+from han_jax.parallel.mesh import make_mesh
+from han_jax.parallel.ring_attn import partition_csr_2d, ring_attention
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -72,7 +72,7 @@ def test_ring_dropout_and_dispatch(case):
     """coef_dropout on the ring backend: deterministic in the rng, differs
     across keys, inverted-dropout mean ≈ no-drop output; and the container
     type dispatches through attention_aggregate (GATConv reachable)."""
-    from han_tpu.ops.attention import attention_aggregate
+    from han_jax.ops.attention import attention_aggregate
 
     csr, fts, ld, ls = case
     mesh = make_mesh(graph=4, heads=1)
@@ -96,10 +96,10 @@ def test_ring_dropout_and_dispatch(case):
 
 def test_han_trains_on_ring_backend(case, tmp_path):
     """HAN end-to-end on graph_format='ring' with dropout — the ring
-    backend is a real training path, not a demo (VERDICT item 7)."""
-    from han_tpu.graph.synthetic import planted_hetero
-    from han_tpu.train.config import preset
-    from han_tpu.train.trainer import MetricLogger, Trainer
+    backend is a real training path, not a demo."""
+    from han_jax.graph.synthetic import planted_hetero
+    from han_jax.train.config import preset
+    from han_jax.train.trainer import MetricLogger, Trainer
 
     ds = planted_hetero(n_nodes=96, n_feats=16, n_classes=3, n_metapaths=2,
                         avg_degree=6.0, train_per_class=10, n_val=12, seed=4)

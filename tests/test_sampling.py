@@ -4,11 +4,11 @@ attention equivalence when fanout ≥ max degree."""
 import numpy as np
 import jax.numpy as jnp
 
-from han_tpu.graph.build import metapath_to_csr
-from han_tpu.graph.containers import ell_from_csr
-from han_tpu.graph.sampling import NeighborSampler, sample_subgraph
-from han_tpu.graph.synthetic import planted_hetero
-from han_tpu.ops.attention import ell_attention
+from han_jax.graph.build import metapath_to_csr
+from han_jax.graph.containers import ell_from_csr
+from han_jax.graph.sampling import NeighborSampler, sample_subgraph
+from han_jax.graph.synthetic import planted_hetero
+from han_jax.ops.attention import ell_attention
 
 
 def make_csr(n=80, deg=6.0, seed=3):
@@ -75,7 +75,7 @@ def test_native_block_sampler_matches_python_when_exhaustive():
     """With fanout >= max degree both the C++ sample_block and the Python
     fallback keep every neighbor → identical blocks (sorted neighbor order,
     BFS discovery order)."""
-    from han_tpu import native
+    from han_jax import native
 
     if not native.available():
         import pytest
@@ -91,11 +91,11 @@ def test_native_block_sampler_matches_python_when_exhaustive():
 
     sb = sample_subgraph(csr, seeds, fanout=max_deg, hops=2,
                          block_size=cap, seed=0)  # native path
-    from han_tpu.graph.sampling import SubgraphBatch  # python fallback, inline
+    from han_jax.graph.sampling import SubgraphBatch  # python fallback, inline
 
     col_idx = np.asarray(jax.device_get(csr.col_idx))[: csr.n_edges]
     # force the python path by calling through a library-less shim
-    import han_tpu.graph.sampling as sampling_mod
+    import han_jax.graph.sampling as sampling_mod
     import unittest.mock as mock
 
     with mock.patch.object(sampling_mod.native, "sample_block",
@@ -110,7 +110,7 @@ def test_native_block_sampler_matches_python_when_exhaustive():
 def test_native_block_sampler_invariants_under_subsampling():
     """When fanout < degree the native sampler must still emit a valid
     block: local indices in range, seeds first, fanout bound respected."""
-    from han_tpu import native
+    from han_jax import native
 
     if not native.available():
         import pytest

@@ -6,11 +6,11 @@ import json
 import numpy as np
 import pytest
 
-from han_tpu.datasets.ppi import ppi_synthetic
-from han_tpu.graph.synthetic import planted_hetero
-from han_tpu.train.config import Config, preset
-from han_tpu.train.trainer import EarlyStopState, MetricLogger, Trainer
-from han_tpu.train.inductive import InductiveTrainer
+from han_jax.datasets.ppi import ppi_synthetic
+from han_jax.graph.synthetic import planted_hetero
+from han_jax.train.config import Config, preset
+from han_jax.train.trainer import EarlyStopState, MetricLogger, Trainer
+from han_jax.train.inductive import InductiveTrainer
 
 
 @pytest.fixture(scope="module")
@@ -114,10 +114,10 @@ def test_ppi_front_door(tmp_path):
     dataset (reference utils/process_ppi.py:85): load_dataset('ppi')
     returns the multi-graph dataset (synthetic fixture when the GraphSAGE
     files are absent) and run() routes it to the InductiveTrainer."""
-    from han_tpu.datasets.ppi import MultiGraphDataset
-    from han_tpu.datasets.registry import load_dataset
-    from han_tpu.train import trainer as train_mod
-    from han_tpu.train.config import preset
+    from han_jax.datasets.ppi import MultiGraphDataset
+    from han_jax.datasets.registry import load_dataset
+    from han_jax.train import trainer as train_mod
+    from han_jax.train.config import preset
 
     ds = load_dataset("ppi", n_graphs=8, nodes_per_graph=24, n_feats=10,
                       n_labels=5, seed=3)
@@ -147,7 +147,7 @@ def test_inductive_resume_reproduces_trajectory(tmp_path):
     """Preempt inductive PPI training mid-run, resume in a fresh trainer:
     the continued run emits exactly the uninterrupted trajectory and final
     metrics — the resilience contract the other two trainers already carry
-    (VERDICT r4 missing #3; reference ex_acm3025.py:154,225-247)."""
+   ."""
     ds = ppi_synthetic(n_graphs=8, nodes_per_graph=24, n_feats=10,
                        n_labels=5, seed=5)
     kw = dict(hid_units=(8,), n_heads=(2, 2), lr=0.02, batch_size=2,
@@ -183,7 +183,7 @@ def test_inductive_resume_reproduces_trajectory(tmp_path):
 def test_inductive_mesh_dp_matches_single_device():
     """DP inductive training on a ('graph',) mesh produces the same loss
     trajectory as the single-device run (psum-of-grads == full batch)."""
-    from han_tpu.parallel.mesh import make_mesh
+    from han_jax.parallel.mesh import make_mesh
 
     ds = ppi_synthetic(n_graphs=8, nodes_per_graph=24, n_feats=10,
                        n_labels=5, seed=4)
@@ -274,7 +274,7 @@ def test_sampled_front_door(small_ds, tmp_path):
     """run() routes --set train.sampled=true to the SampledTrainer — the
     >HBM path is reachable from the same front door as every other
     trainer, including the device sampler."""
-    from han_tpu.train import trainer as train_mod
+    from han_jax.train import trainer as train_mod
 
     for sampler in ("host", "device"):
         cfg = preset("acm")

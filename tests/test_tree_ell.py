@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from han_tpu.graph.containers import TreeEllGraph
-from han_tpu.ops.attention import attention_aggregate, ell_attention
-from han_tpu.ops import tree_ell
+from han_jax.graph.containers import TreeEllGraph
+from han_jax.ops.attention import attention_aggregate, ell_attention
+from han_jax.ops import tree_ell
 
 
 def make_tree_block(batch=6, fanout=3, hops=2, seed=0):
@@ -76,7 +76,7 @@ def test_tree_forward_matches_ell():
     """Tree dispatch (attention_aggregate on a TreeEllGraph) computes the
     same masked softmax aggregate as the generic ell backend on the same
     neighbor lists."""
-    from han_tpu.graph.containers import EllGraph
+    from han_jax.graph.containers import EllGraph
 
     g, fts, ld, ls = make_tree_block(seed=3)
     out_tree = attention_aggregate(g, fts, ld, ls)
